@@ -1,5 +1,5 @@
-"""meatmodeler_tpu — a TPU-native (JAX/XLA/Pallas) Structure-from-Motion and
-volume-estimation framework with the capabilities of skyepurchase/MeatModeler.
+"""meatmodeler_tpu — a JAX Structure-from-Motion and volume-estimation
+framework for NVIDIA GPUs with the capabilities of skyepurchase/MeatModeler.
 
 Public API mirrors the reference's entry points:
   * ``process(video, path, ...)`` — end-to-end video -> point cloud + volume

@@ -43,7 +43,7 @@ class KeyframeConfig:
     # keyframe. `process` passes 0.1 (processor.py:365); the function default
     # was 0.2 (processor.py:62).
     threshold: float = 0.1
-    # Resolution-invariant alternative (VERDICT r4 #10): when > 0, the rule
+    # Resolution-invariant alternative: when > 0, the rule
     # is `accumulated_error > threshold_abs` — a constant intensity budget,
     # independent of both the full resolution and the pass-1 downscale.
     # The reference's `err > threshold * full_width` rule (processor.py:100)
@@ -55,8 +55,8 @@ class KeyframeConfig:
     # anchor: threshold_abs = threshold * width_of_the_calibration_clip
     # (e.g. the 1080p rule threshold=0.05 becomes threshold_abs=96).
     threshold_abs: float = 0.0
-    # Secondary FRAME-COUNT-INVARIANT trigger (VERDICT r4 #1; the reference
-    # has nothing like it): also fire a keyframe when the accumulated mean
+    # Secondary FRAME-COUNT-INVARIANT trigger (the reference has nothing
+    # like it): also fire a keyframe when the accumulated mean
     # optical-flow DISPLACEMENT of the tracked points exceeds
     # flow_threshold * working_width. The reference's intensity rule
     # (processor.py:95-100) accumulates a per-frame appearance residual that
@@ -100,9 +100,8 @@ class OrbConfig:
     scale_factor: float = 1.2
     patch_size: int = 31
     harris_block: int = 7
-    # Recall target for the TPU-native approx_max_k corner ranking
-    # (1.0 = exact lax.top_k: slower to compile and run, bit-identical to
-    # the round-1 behavior).
+    # Recall target for the approx_max_k corner ranking (1.0 = exact
+    # lax.top_k, the original ordering).
     topk_recall: float = 0.95
     # Spatially-bucketed detection: cap each cell of a G x G grid at
     # ceil(num_features / G^2) keypoints before the global ranking (cv2's
@@ -141,7 +140,7 @@ class ChessboardConfig:
     detector: str = "auto"
     detect_candidates: int = 24  # saddle candidates kept for grid assignment
     detect_tol: float = 3.0  # px gate between projected grid and candidates
-    # Force exact lax.top_k saddle ranking (round-1 behavior) instead of the
+    # Force exact lax.top_k saddle ranking (the original behavior) instead of the
     # oversampled approx_max_k path — a debugging escape hatch for missed
     # detections; see ops/board_detect.saddle_candidates.
     detect_exact_topk: bool = False
@@ -179,9 +178,12 @@ class SolverConfig:
     # adjust_points AUTO-shards its points over enough devices to fit
     # (overriding point_shard_devices upward) and refuses with a described
     # error if the machine has too few — there is no silent-OOM path into
-    # the dense strip. Default: half a v5e core's 16 GB HBM (the strip
-    # coexists with the problem arrays and XLA temporaries). 0 disables.
-    hbm_strip_budget_bytes: int = 8 * 2**30
+    # the dense strip. Default: about half of what JAX lets one process
+    # allocate on an NVIDIA H100 80GB at its default 75% memory fraction
+    # (memory_stats()["bytes_limit"] = 63,763,120,128 bytes, printed by
+    # chip_smoke.py's device phase); the strip coexists with the problem
+    # arrays and XLA temporaries. 0 disables.
+    hbm_strip_budget_bytes: int = 29 * 2**30
     # Pad adjust_points/adjust_pose problem shapes up to these multiples
     # (frames, points, observations) before solving. BA problem sizes are
     # data-dependent (every video yields a different track count), so
@@ -265,7 +267,7 @@ class VolumeConfig:
     # ProcessResult.volume_confidence.
     hull_directions: int = 512
     hull_trim: int = 5
-    # Sparse-aware trim scaling (VERDICT r4 #1): the trim depth reaches
+    # Sparse-aware trim scaling: the trim depth reaches
     # `hull_trim` at `hull_trim_ref` support points and scales down
     # linearly below it (0 points -> raw max), so the order statistic bites
     # a roughly constant FRACTION of the support cloud instead of a fixed
@@ -320,8 +322,8 @@ class PipelineConfig:
     # min(H, W) >= 1060, else 1). All image-plane quantities (K,
     # observations, reprojection RMSE) are then expressed in the downscaled
     # pixel units; the 3D cloud and volume are unchanged (world units come
-    # from the board's side_length). Cuts keyframe bytes over the
-    # burst-throttled link by factor^2 at the cost of proportionally
+    # from the board's side_length). Cuts keyframe bytes moved to the
+    # device and pass-2 work by factor^2 at the cost of proportionally
     # coarser feature/corner localization in full-resolution pixels.
     pass2_downscale: int = 1
     # Keyframe enhancement path for pass 2:
@@ -329,19 +331,17 @@ class PipelineConfig:
     #     the BGR keyframe, then grey; processor.py:12-26,314,357); keyframes
     #     ship to the device as full-resolution BGR.
     #   "grey" — CLAHE directly on the BT.601 grey (native host conversion);
-    #     keyframes ship at one byte per pixel — 3x fewer bytes over the
-    #     burst-throttled link, at the cost of an approximation: CLAHE on
+    #     keyframes ship at one byte per pixel — 3x fewer bytes moved to the
+    #     device, at the cost of an approximation: CLAHE on
     #     luma instead of LAB lightness (equivalent for low-chroma content).
     pass2_enhance: str = "bgr_lab"
     # Pass-1 execution backend: "device" streams every downscaled frame to
     # the device and runs the lax.scan keyframe program; "host" runs the
     # IDENTICAL selection state machine in native C++ (io/native_pass1.py)
-    # so only selected keyframes ever cross the host->device link. The
-    # device scan is the default (the selection math belongs on the TPU
-    # when the link runs at nominal PCIe rates); "host" is for deployments
-    # where a throttled/tunneled link, not compute, bounds throughput —
-    # pass 1's stream is ~60 MB per 300 frames of 1080p vs ~10 MB of
-    # selected keyframes.
+    # so only selected keyframes are copied to the device — pass 1's stream
+    # is ~60 MB per 300 frames of 1080p vs ~10 MB of selected keyframes.
+    # The device scan is the default; which is faster on the GPU is
+    # unmeasured (ROADMAP 1.5).
     pass1_backend: str = "device"
     # Marker-free fallback (north-star RANSAC requirement): when fewer than 3
     # keyframes show the calibration board, re-run keyframe selection without
@@ -361,12 +361,11 @@ class PipelineConfig:
     markerless_focal: float = 0.0
     # Bootstrap board-hunt budget when the marker-free fallback is armed:
     # after this many board-free leading frames, pass 1 stops hunting and
-    # the marker-free path engages immediately. The hunt costs a host cv2
+    # the marker-free path engages immediately. The hunt costs a board
     # detect per frame (the reference busy-loops on it FOREVER,
-    # processor.py:315-319; measured here pre-budget: 356 s of a 378 s warm
-    # run on a board-free 720p clip). Frames past the first few probe in
-    # cv2's FAST_CHECK mode (cheap no-board rejection). 0 = hunt every
-    # frame (the pre-round-3 behavior). Ignored when markerless_fallback is
+    # processor.py:315-319, and a full no-board cv2 detect costs seconds
+    # per 1080p frame). Frames past the first few probe in cv2's FAST_CHECK
+    # mode (cheap no-board rejection). 0 = hunt every frame. Ignored when markerless_fallback is
     # off — a board-required run still scans everything before raising.
     board_probe_frames: int = 45
     # Declare the video board-free up front: pass 1 starts directly in the

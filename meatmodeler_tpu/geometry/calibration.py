@@ -1,6 +1,6 @@
 """Camera calibration from planar chessboard views (Zhang's method + LM).
 
-TPU-native replacement for ``cv2.calibrateCamera`` (``processor.py:49-53``):
+Replacement for ``cv2.calibrateCamera`` (``processor.py:49-53``):
 
   1. per-view DLT homographies board-plane -> image (``vmap``),
   2. closed-form intrinsics from the absolute-conic constraints (Zhang 2000),

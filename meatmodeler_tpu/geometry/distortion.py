@@ -2,7 +2,7 @@
 
 The reference never models distortion itself — it passes the coefficients
 from ``cv2.calibrateCamera`` straight back into ``cv2.solvePnP``
-(``processor.py:175-179, 422``). The TPU rebuild needs the model explicitly:
+(``processor.py:175-179, 422``). The rebuild needs the model explicitly:
 ``distort`` is applied inside calibration's reprojection residual, and
 ``undistort_points`` (fixed-point iteration, batched) normalizes observed
 pixels once so downstream PnP/triangulation/BA can use the ideal pinhole

@@ -1,7 +1,7 @@
 """Normalized DLT homography estimation (building block for Zhang calibration).
 
 The reference delegates calibration entirely to ``cv2.calibrateCamera``
-(``processor.py:49-53``); the TPU rebuild initializes intrinsics from planar
+(``processor.py:49-53``); the rebuild initializes intrinsics from planar
 homographies (Zhang's method) and refines with Gauss-Newton
 (``calibration.py``). Batched over views with ``vmap``.
 """

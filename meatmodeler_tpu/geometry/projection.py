@@ -1,6 +1,6 @@
 """Pinhole camera projection — the residual kernel of bundle adjustment.
 
-TPU-native equivalent of the reference's NumPy residual core
+JAX equivalent of the reference's NumPy residual core
 (``bundleAdjuster.py:7-52``: ``rotate`` + ``project``): rotate 3D points by
 per-observation axis-angle vectors, translate, apply the intrinsic matrix and
 perspective-divide. Pure JAX, broadcastable over leading batch dims, and
@@ -59,7 +59,7 @@ def rotate_points(points: jax.Array, rvecs: jax.Array) -> jax.Array:
     #      Taylor polynomial in theta_sq.
     # Unguarded, the whole LM camera gradient went NaN whenever any camera
     # sat at the identity, silently railing the damping without ever
-    # accepting a step (caught by tests/test_tpu_device.py::
+    # accepting a step (caught by tests/test_gpu_device.py::
     # test_global_ba_converges_on_device).
     safe_theta_sq = jnp.where(small, 1.0, theta_sq)
     safe_theta = jnp.sqrt(safe_theta_sq)

@@ -11,7 +11,7 @@ fully parallel sweep — thousands of 8-point hypotheses drawn with
 ``jax.random``, each solved by the normalized 8-point algorithm (a batched
 9x9 symmetric eigenproblem), all scored against all matches by Sampson
 distance (one batched matmul pipeline), best-by-inlier-count selected with
-an ``argmax``. No data-dependent control flow: one XLA program, MXU-heavy.
+an ``argmax``. No data-dependent control flow: one XLA program, matmul-heavy.
 """
 
 from __future__ import annotations
@@ -291,10 +291,9 @@ def _triangulate_midpoint(rot: jax.Array, tvec: jax.Array, n1: jax.Array, n2: ja
     system with a closed-form inverse, i.e. pure elementwise arithmetic.
     This exists because the DLT path (``triangulate_pairs``) runs one tiny
     eigendecomposition PER POINT: batched 4x4 factorizations are serial
-    QR-iteration work a TPU cannot tile, and the RANSAC scoring loop calls
-    triangulation ~40x per bootstrap (4 cheirality candidates x top-k
-    hypotheses + the candidate scores) — measured 5.1 s of an 8.6 s
-    marker-free chain. Scoring only needs depth SIGNS and coarse
+    QR-iteration work, and the RANSAC scoring loop calls triangulation ~40x
+    per bootstrap (4 cheirality candidates x top-k hypotheses + the
+    candidate scores) — most of the marker-free chain's time. Scoring only needs depth SIGNS and coarse
     reprojections, which the midpoint gives at ~100x less device time; the
     production n-view triangulation stage keeps the DLT.
 
@@ -486,7 +485,7 @@ def estimate_relative_pose(
     translation direction can be ~90 degrees off while its epipolar residuals
     look fine). So the top-``top_k`` hypotheses by consensus are each
     decomposed (cheirality vote), refined with the robust manifold GN — all
-    ``vmap``-batched, the TPU-native replacement for cv2's sequential
+    ``vmap``-batched, the data-parallel replacement for cv2's sequential
     LO-RANSAC loop — and the refined candidate with the largest consensus
     (robust cost as tie-break) wins.
 

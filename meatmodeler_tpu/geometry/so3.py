@@ -1,6 +1,6 @@
 """SO(3) exponential / logarithm maps (axis-angle <-> rotation matrix).
 
-TPU-native replacement for every ``cv2.Rodrigues`` call site in the reference
+Replacement for every ``cv2.Rodrigues`` call site in the reference
 (``processor.py:182``, ``bundleAdjuster.py:153,201``) and for the hand-rolled
 NumPy log map ``frameParameters`` (``bundleAdjuster.py:105-134``).
 

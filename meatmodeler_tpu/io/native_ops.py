@@ -4,7 +4,7 @@ Same lazy-build pattern as the y4m loader (io/y4m.py): compile with g++ on
 first use, cache the .so next to the package, fall back to NumPy when no
 toolchain is available. The exposed op is the host side of pass 1's
 transfer-optimal path: BGR -> downscaled grey in one streaming pass, so only
-one byte per (downscaled) pixel crosses the host->device link.
+one byte per (downscaled) pixel is copied to the device.
 """
 
 from __future__ import annotations

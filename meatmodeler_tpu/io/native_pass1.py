@@ -4,9 +4,7 @@
 the host CPU: the same CLAHE -> pyramidal-LK -> error-accumulation ->
 Shi-Tomasi-reseed state machine as the device scan
 (``pipeline._make_keyframe_scan``), in scalar C++. Only *selected* keyframes
-then cross the host->device link — on hosts whose link burst-throttles
-(measured two to three orders below nominal on sustained volume), the
-per-frame stream costs ~10x the selection math itself.
+are then copied to the device, not the per-frame stream.
 
 Statistical parity contract (SURVEY.md §7.3): keyframe *selection* matches
 the device scan's density and placement, not bitwise flag-for-flag — both

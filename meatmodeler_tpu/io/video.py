@@ -2,7 +2,7 @@
 
 The reference reads frames one at a time through ``cv2.VideoCapture``
 (``processor.py:310-319, 354, 415``). Video decode is inherently host work
-(SURVEY.md §2.4); the TPU-native change is *batching*: frames are decoded in
+(SURVEY.md §2.4); the change here is *batching*: frames are decoded in
 chunks sized for the device's scan-based keyframe pass (``pipeline.py``),
 instead of round-tripping per frame.
 
@@ -38,7 +38,14 @@ class FrameSource:
 
                 self._frames = self._normalize(y4m.read_y4m(path))
             else:
-                import cv2
+                try:
+                    import cv2
+                except ImportError as e:
+                    raise ImportError(
+                        f"decoding {path.suffix or 'this'} video containers "
+                        f"needs OpenCV (cv2), which is not installed; pass "
+                        f"frames as a .npy or .y4m file or a numpy array"
+                    ) from e
 
                 self._cap = cv2.VideoCapture(str(path))
                 if not self._cap.isOpened():

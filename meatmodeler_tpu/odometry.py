@@ -134,8 +134,12 @@ def chain_poses(
             jnp.concatenate([rvec, tvec])[None]
         )[0]
         pts3d = triangulation.triangulate_pairs(
-            jnp.broadcast_to(k @ eye, (pts.shape[0], 3, 4)),
-            jnp.broadcast_to(k @ ext2[:3], (pts.shape[0], 3, 4)),
+            jnp.broadcast_to(
+                projection.projection_from_extrinsic(k, eye), (pts.shape[0], 3, 4)
+            ),
+            jnp.broadcast_to(
+                projection.projection_from_extrinsic(k, ext2), (pts.shape[0], 3, 4)
+            ),
             pts,
             flow.points,
         )

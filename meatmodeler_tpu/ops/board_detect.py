@@ -1,6 +1,6 @@
 """On-device chessboard detection.
 
-TPU-native replacement for ``cv2.findChessboardCorners`` (call sites
+On-device replacement for ``cv2.findChessboardCorners`` (call sites
 ``processor.py:315, 319, 369``) — the one compute stage SURVEY.md §7.3.5
 deferred to host OpenCV ("genuinely hard to do well on-device ... revisit
 later"). The design inverts the classic sequential grow-a-grid detectors into
@@ -98,13 +98,13 @@ def saddle_candidates(
 ) -> _Candidates:
     """Top-k saddle points with sub-pixel parabolic refinement.
 
-    ``exact_topk=False`` ranks with a 4x-oversampled ``approx_max_k`` (fast
-    Mosaic compile) refined by an exact sort of the survivors: a true
+    ``exact_topk=False`` ranks with a 4x-oversampled ``approx_max_k``
+    refined by an exact sort of the survivors: a true
     top-``max_candidates`` saddle is lost only if it shares a reduction bin
     with a stronger element AND falls outside the 4x oversample — board
     detection needs ALL pattern corners among the candidates, so the
     oversample keeps the approximation safe. ``True`` forces plain
-    ``lax.top_k`` (round-1 behavior) for debugging missed detections.
+    ``lax.top_k`` (the original behavior) for debugging missed detections.
     """
     resp = saddle_response(grey)
     h, w = resp.shape
@@ -274,8 +274,8 @@ def find_chessboard_device(
         nearest = jnp.argmin(d2, axis=1)
         dmin = jnp.sqrt(md2)
         matched = dmin < tol
-        # Scatter-free injectivity (a 1-element scatter per hypothesis is a
-        # measurable Mosaic compile cost x 65k hypotheses): candidate k is
+        # Scatter-free injectivity (no 1-element scatter per hypothesis x
+        # 65k hypotheses): candidate k is
         # hit iff it is the FIRST minimizer of some matched grid point —
         # d2 is only (G, K), so the one-hot reduction is free.
         is_near = d2 <= md2[:, None]

@@ -84,10 +84,22 @@ def canonicalize_corners(corners: np.ndarray, pattern: Tuple[int, int]) -> np.nd
     return c.reshape(-1, 2)
 
 
+def host_detector_available() -> bool:
+    """Whether OpenCV, which ``find_chessboard`` runs, can be imported."""
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
 def find_chessboard(
     grey: np.ndarray, pattern: Tuple[int, int], fast_probe: bool = False
 ) -> Optional[np.ndarray]:
-    """Detect inner corners on the host. Returns (N, 2) float32 or None.
+    """Detect inner corners on the host with OpenCV. Returns (N, 2) float32,
+    or None when no board is found. Raises ImportError without OpenCV:
+    callers check ``host_detector_available`` and use the on-device detector
+    (``ops/board_detect.py``) instead.
 
     Corner order matches OpenCV's (row-major over the pattern), which the
     calibration/pose stages rely on for 2D-3D correspondence.
@@ -99,10 +111,7 @@ def find_chessboard(
     rejects in milliseconds). Probe callers must keep a full-detector
     safety net — FAST_CHECK can false-negative small or blurred boards.
     """
-    try:
-        import cv2
-    except ImportError:  # pragma: no cover - cv2 is present in CI
-        return None
+    import cv2
 
     img = np.ascontiguousarray(np.clip(np.asarray(grey), 0, 255).astype(np.uint8))
     if fast_probe:
@@ -131,8 +140,8 @@ def find_chessboard(
 def _grad_window(img, center, win):
     """Bilinearly sampled intensity window + central-difference gradients.
 
-    One dynamic_slice block load + four shifted views (fast under vmap on
-    TPU), same scheme as ``ops.klt._bilinear_window``.
+    One dynamic_slice block load + four shifted views (no per-pixel
+    gather under vmap), same scheme as ``ops.klt._bilinear_window``.
     """
     size = win + 2  # +1 ring for the central differences
     half = (size - 1) / 2.0

@@ -1,6 +1,6 @@
 """CLAHE — contrast-limited adaptive histogram equalization, on device.
 
-TPU-native replacement for ``cv2.createCLAHE(clipLimit=3.5,
+Replacement for ``cv2.createCLAHE(clipLimit=3.5,
 tileGridSize=(8, 8)).apply`` (``processor.py:22-23``), the per-frame
 preprocessing of every video frame (HOT LOOP #1, SURVEY.md §3.1).
 
@@ -13,9 +13,9 @@ Algorithm (mirrors OpenCV's):
   5. each output pixel bilinearly interpolates the LUTs of its 4 surrounding
      tile centers.
 
-Everything is one fused XLA program over (..., H, W) batches: histograms via
-scatter-add, the LUT application via a gather — both map well onto TPU and
-``vmap`` over a frame batch. Held to statistical parity with OpenCV
+Everything is one XLA program over (..., H, W) batches, on every backend:
+histograms via scatter-add, the LUT application as band-wise one-hot
+matmuls (see ``_clahe_single``), ``vmap``-ed over a frame batch. Held to statistical parity with OpenCV
 (SURVEY.md §7.3.4: interpolation details are unspecified; tolerance is
 mean-abs-difference of a couple of grey levels, not bitwise).
 """
@@ -43,12 +43,11 @@ def _pad_to_tiles(img: jax.Array, tiles: Tuple[int, int]):
     return jnp.pad(img, pad_cfg, mode="reflect"), (th, tw)
 
 
-def clahe(img: jax.Array, clip_limit: float = 3.5, tiles: Tuple[int, int] = (8, 8)) -> jax.Array:
+@partial(jax.jit, static_argnames=("tiles",))
+def clahe(
+    img: jax.Array, clip_limit: float = 3.5, tiles: Tuple[int, int] = (8, 8)
+) -> jax.Array:
     """Apply CLAHE to a single-channel image (or batch).
-
-    On TPU this dispatches to the fused Pallas kernels (``clahe_pallas.py``,
-    ~10x less HBM traffic); the XLA program below is the CPU path and the
-    numerical oracle.
 
     Args:
       img: (..., H, W) image with values in [0, 255] (any float/int dtype).
@@ -58,26 +57,6 @@ def clahe(img: jax.Array, clip_limit: float = 3.5, tiles: Tuple[int, int] = (8, 
     Returns:
       (..., H, W) float32 equalized image in [0, 255].
     """
-    if jax.default_backend() != "cpu":
-        from meatmodeler_tpu.ops.clahe_pallas import clahe_pallas
-
-        LAST_PATH["path"] = "pallas"
-        return clahe_pallas(img, clip_limit=float(clip_limit), tiles=tiles)
-    LAST_PATH["path"] = "xla"
-    return clahe_xla(img, clip_limit, tiles)
-
-
-# Which implementation the last ``clahe`` call dispatched to ("pallas" on
-# TPU, "xla" on CPU). Benchmark artifacts record this so the served code
-# path is evidence, not faith (VERDICT r1 weak #7).
-LAST_PATH = {"path": None}
-
-
-@partial(jax.jit, static_argnames=("tiles",))
-def clahe_xla(
-    img: jax.Array, clip_limit: float = 3.5, tiles: Tuple[int, int] = (8, 8)
-) -> jax.Array:
-    """Pure-XLA CLAHE (CPU path / golden oracle for the Pallas kernels)."""
     img = jnp.asarray(img)
     batch_shape = img.shape[:-2]
     h, w = img.shape[-2], img.shape[-1]
@@ -128,12 +107,10 @@ def _clahe_single(img: jax.Array, clip_limit: float, tiles: Tuple[int, int]) -> 
     lut = lut.reshape(ty, tx, 256)
 
     # --- bilinear interpolation between the 4 surrounding tile LUTs ---
-    # Gather-free: a per-pixel scattered LUT gather is pathological on the
-    # TPU backend (hundreds of seconds to compile, ~46 ms/frame at 1080p).
-    # Instead the image splits into (ty+1) x (tx+1) static bands between
-    # tile centers; within a band the 4 source tiles are FIXED, so the
-    # lookup becomes a one-hot(pixel) @ lut4 matmul — MXU work that
-    # compiles in seconds and runs in microseconds.
+    # Gather-free: the image splits into (ty+1) x (tx+1) static bands
+    # between tile centers; within a band the 4 source tiles are FIXED, so
+    # the lookup becomes a one-hot(pixel) @ lut4 matmul. (Whether a plain
+    # per-pixel gather is faster on the GPU is unmeasured; see ROADMAP.)
     pix = vals[:h, :w].astype(jnp.bfloat16)  # 0..255 exact in bf16
     bins = jnp.arange(256, dtype=jnp.bfloat16)
 

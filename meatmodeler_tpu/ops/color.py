@@ -1,6 +1,6 @@
 """Color-space conversions (BGR <-> grey / LAB), batched JAX.
 
-TPU-native equivalent of the ``cv2.cvtColor`` / ``split`` / ``merge`` call
+JAX equivalent of the ``cv2.cvtColor`` / ``split`` / ``merge`` call
 sites (``processor.py:19-26, 314, 357``). These are pure elementwise maps —
 XLA fuses them with neighbouring ops (e.g. CLAHE's LUT application), so no
 Pallas kernel is warranted (SURVEY.md §2.4: "trivial vmapped JAX" tier).
@@ -14,18 +14,20 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 __all__ = ["bgr_to_grey", "bgr_to_lab", "lab_to_bgr"]
 
 # sRGB (D65) <-> XYZ matrices, as used by OpenCV's Lab conversion.
-_RGB2XYZ = jnp.array(
+# Host constants: a device array here would start the backend at import.
+_RGB2XYZ = np.array(
     [
         [0.412453, 0.357580, 0.180423],
         [0.212671, 0.715160, 0.072169],
         [0.019334, 0.119193, 0.950227],
     ]
 )
-_XYZ2RGB = jnp.array(
+_XYZ2RGB = np.array(
     [
         [3.240479, -1.53715, -0.498535],
         [-0.969256, 1.875991, 0.041556],
@@ -33,14 +35,13 @@ _XYZ2RGB = jnp.array(
     ]
 )
 # D65 white point normalization applied to X and Z.
-_WHITE = jnp.array([0.950456, 1.0, 1.088754])
+_WHITE = np.array([0.950456, 1.0, 1.088754])
 
 
 def _matvec3(m: jax.Array, v: jax.Array) -> jax.Array:
-    """Unrolled 3x3 @ (..., 3). A degenerate-size einsum over a large image
-    array takes the TPU backend minutes to COMPILE (measured 154 s at 1080p
-    x16 vs 0.6 s unrolled, identical runtime) — never hand Mosaic a matmul
-    with a 3-wide contraction."""
+    """Unrolled 3x3 @ (..., 3): elementwise multiply-adds that XLA fuses
+    with their neighbours, instead of a matmul with a 3-wide contraction
+    over a large image array."""
     c0, c1, c2 = v[..., 0], v[..., 1], v[..., 2]
     return jnp.stack(
         [

@@ -1,6 +1,6 @@
 """Corner detection: Sobel gradients, structure tensor, Shi-Tomasi & Harris.
 
-TPU-native replacement for ``cv2.goodFeaturesToTrack``
+Replacement for ``cv2.goodFeaturesToTrack``
 (``processor.py:104, 322``): Sobel gradients -> windowed structure tensor ->
 minimum-eigenvalue response -> 3x3 non-max suppression -> min-distance
 enforcement -> top-k, all static-shaped with validity masks (SURVEY.md §2.4).
@@ -20,6 +20,7 @@ from typing import NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 __all__ = ["Corners", "sobel", "min_eig_response", "harris_response", "good_features"]
 
@@ -44,7 +45,7 @@ def _conv2(img: jax.Array, kernel: jax.Array) -> jax.Array:
     )[0, 0]
 
 
-_SOBEL_X = jnp.array([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]])
+_SOBEL_X = np.array([[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]])
 _SOBEL_Y = _SOBEL_X.T
 
 
@@ -106,9 +107,8 @@ def good_features(
       quality_level: relative response threshold vs the strongest corner.
       min_distance: minimum spacing, enforced per grid cell.
       block_size: structure-tensor window.
-      exact_topk: force the exact ``lax.top_k`` ranking (slower to compile
-        and run on TPU; bit-identical to the round-1 ordering) instead of the
-        oversampled ``approx_max_k`` path — the same debugging escape hatch
+      exact_topk: force the exact ``lax.top_k`` ranking (the original
+        ordering) instead of the oversampled ``approx_max_k`` path — the same debugging escape hatch
         as ``board_detect.saddle_candidates`` / ``OrbConfig.topk_recall``.
 
     Returns:
@@ -149,10 +149,10 @@ def good_features(
     valid &= is_cell_best & jnp.isfinite(masked_resp)
 
     flat = jnp.where(valid, resp, -jnp.inf).reshape(-1)
-    # 4x-oversampled approx_max_k + exact refine: ~5x faster Mosaic compile
-    # than lax.top_k at image-sized inputs and safe against reduction-bin
-    # collisions (a true top-k corner must also fall outside the oversample
-    # to be lost); exact sort fallback on CPU. Same pattern as
+    # 4x-oversampled approx_max_k + exact refine, safe against reduction-
+    # bin collisions (a true top-k corner must also fall outside the
+    # oversample to be lost). On the GPU approx_max_k lowers to an exact
+    # sort, so this sorts twice (ROADMAP 3.3). Same pattern as
     # ops/board_detect.saddle_candidates.
     k_eff = min(max_corners, flat.shape[0])
     if exact_topk:

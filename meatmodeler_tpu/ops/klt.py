@@ -1,6 +1,6 @@
 """Pyramidal Lucas-Kanade optical flow, vmapped over points.
 
-TPU-native replacement for ``cv2.calcOpticalFlowPyrLK``
+Replacement for ``cv2.calcOpticalFlowPyrLK``
 (``processor.py:79-83`` — the per-frame hot path of keyframe selection).
 Design per SURVEY.md §2.4: image pyramid + iterative LK solve, ``vmap`` over
 points, static iteration counts with convergence masking (the
@@ -18,6 +18,7 @@ from typing import List, NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 __all__ = ["FlowResult", "build_pyramid", "lucas_kanade"]
 
@@ -28,7 +29,7 @@ class FlowResult(NamedTuple):
     error: jax.Array  # (N,) mean |I_prev - I_curr| over the window
 
 
-_GAUSS5 = jnp.array([1.0, 4.0, 6.0, 4.0, 1.0]) / 16.0
+_GAUSS5 = np.array([1.0, 4.0, 6.0, 4.0, 1.0]) / 16.0
 
 
 def _blur5(img: jax.Array) -> jax.Array:
@@ -53,9 +54,10 @@ def _bilinear_window(img: jax.Array, center: jax.Array, win: int) -> jax.Array:
     """Sample a (win x win) patch around float `center` (x, y), bilinear.
 
     One ``dynamic_slice`` of (win+1, win+1) plus four static shifted views —
-    under ``vmap`` this lowers to a contiguous block gather, orders of
-    magnitude cheaper on TPU than the per-element advanced-indexing gather
-    (529 scattered loads per window) it replaces.
+    under ``vmap`` this lowers to a contiguous block gather instead of a
+    per-element advanced-indexing gather (529 scattered loads per window).
+    Whether the scattered gather is as fast on the GPU is unmeasured
+    (ROADMAP).
     """
     half = (win - 1) / 2.0
     # Edge-pad so border windows sample replicate-padded pixels instead of a

@@ -1,14 +1,13 @@
-"""Descriptor matching as a Hamming-distance matmul on the MXU.
+"""Descriptor matching as a Hamming-distance matmul.
 
-TPU-native replacement for ``cv2.FlannBasedMatcher(...).knnMatch(k=2)`` plus
-the Lowe ratio test (``processor.py:132-137``). The reference uses an
-*approximate* LSH matcher; here the full exact distance matrix is one MXU
-matmul — for binary descriptors a, b with bits in {0, 1}:
+Replacement for ``cv2.FlannBasedMatcher(...).knnMatch(k=2)`` plus the Lowe
+ratio test (``processor.py:132-137``). The reference uses an *approximate*
+LSH matcher; here the full exact distance matrix is one matmul — for binary descriptors a, b with bits in {0, 1}:
 
     hamming(a, b) = popcount(a XOR b) = |a| + |b| - 2 a.b
 
 so the (Q, T) distance matrix is ``|a|_row + |b|_col - 2 A @ B^T`` — exactly
-the kind of large int matmul the MXU was built for. Exact beats approximate
+a large bf16 matmul with f32 accumulation, tensor-core work. Exact beats approximate
 here (SURVEY.md §2.4). Top-2 selection is two masked row minima (cheaper
 than a sort), then Lowe's ratio + optional cross-check, all static-shaped.
 """
@@ -35,7 +34,7 @@ def hamming_matrix(query: jax.Array, train: jax.Array) -> jax.Array:
     """(Q, T) Hamming distances between bit descriptors (int8 {0,1} rows)."""
     q = query.astype(jnp.float32)
     t = train.astype(jnp.float32)
-    # bfloat16 inputs keep the MXU at full rate; 256-long dot products of
+    # bfloat16 inputs run on the tensor cores; 256-long dot products of
     # {0,1} values are exactly representable (sums <= 256 < 2^8 precision
     # of the f32 accumulator).
     dot = jax.lax.dot_general(
@@ -82,9 +81,8 @@ def match_descriptors(
     d = jnp.where(query_mask[:, None], d, big)
 
     # Row-wise top-2 via two masked minima. The best entry is masked with an
-    # iota compare rather than a scatter: a (Q, T) scatter is measurably
-    # slower to compile and run on the Mosaic backend than a broadcast
-    # select of the same shape.
+    # iota compare rather than a scatter: a broadcast select of the same
+    # shape fuses with the surrounding elementwise work.
     best_t = jnp.argmin(d, axis=1)  # (Q,)
     best_d = jnp.take_along_axis(d, best_t[:, None], axis=1)[:, 0]
     iota_t = jax.lax.broadcasted_iota(jnp.int32, d.shape, 1)

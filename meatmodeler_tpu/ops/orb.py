@@ -1,6 +1,6 @@
 """ORB: FAST corners + orientation + rotated-BRIEF descriptors, on device.
 
-TPU-native replacement for ``cv2.ORB_create(nfeatures=20000)`` /
+Replacement for ``cv2.ORB_create(nfeatures=20000)`` /
 ``detectAndCompute`` (``processor.py:308, 129, 328``). Everything is
 static-shaped (fixed keypoint capacity per level, validity masks) per
 SURVEY.md §7.1.
@@ -16,7 +16,7 @@ Pipeline per pyramid level (scale 1.2, like ORB):
   4. rBRIEF: 256 coordinate pairs rotated by the keypoint angle, bilinearly
      sampled from the 7x7-Gaussian-blurred image, compared into a (256,)
      bit vector stored as int8 — the layout the Hamming-matmul matcher
-     (``ops/matching.py``) consumes directly on the MXU.
+     (``ops/matching.py``) consumes directly.
 
 Deviation, by design (SURVEY.md §7.3.2): the sampling pattern is a fixed
 seeded Gaussian pattern (the original BRIEF construction), not OpenCV's
@@ -59,9 +59,6 @@ def _make_brief_pattern(seed: int = 1234) -> np.ndarray:
     rng = np.random.default_rng(seed)
     pts = rng.normal(scale=_PATCH / 5.0, size=(_NBITS, 2, 2))
     return np.clip(np.round(pts), -_HALF + 2, _HALF - 2).astype(np.float32)
-
-
-_BRIEF_PATTERN = jnp.asarray(_make_brief_pattern())  # (256, 2, 2) as (pair, endpoint, (dy, dx))
 
 
 class OrbFeatures(NamedTuple):
@@ -124,9 +121,8 @@ def _orientation(img: jax.Array, xy: jax.Array, mask: jax.Array) -> jax.Array:
 # Steered BRIEF as matmuls: the angle is quantized to 30 bins (ORB uses 12
 # degree bins) and each bin's 512 bilinear sampling taps over a DPATCH x
 # DPATCH patch are baked into a dense weight matrix. Descriptor sampling for
-# ALL keypoints is then one (30*512, DPATCH^2) x (DPATCH^2, N) MXU matmul +
-# a per-keypoint bin selection — zero scattered gathers (which cost minutes
-# of compile time and dominate runtime on the TPU backend).
+# ALL keypoints is then one (30*512, DPATCH^2) x (DPATCH^2, N) matmul + a
+# per-keypoint bin selection — zero scattered gathers.
 _NBINS = 30
 _DPATCH = 41  # covers the +-13 pattern offsets under any rotation (+1 bilinear)
 _DHALF = _DPATCH // 2
@@ -170,10 +166,8 @@ def brief_bin_weights() -> jax.Array:
 
     Always thread this through jit boundaries as a real argument (see
     ``detect_and_compute``'s ``bin_weights``): closing over it inside a
-    traced function embeds all 52 MB as an HLO literal, which alone costs
-    ~70 s of lowering plus ~70 s of backend compile PER PYRAMID LEVEL
-    (measured, tools/compile_probe.py) — the dominant term of the 390 s
-    cold ORB compile in round 1.
+    traced function embeds all 52 MB as an HLO literal, which makes
+    lowering and compiling each pyramid level's program far slower.
     """
     return jnp.asarray(_BIN_WEIGHTS_NP, jnp.bfloat16)
 
@@ -197,7 +191,7 @@ def _describe(
 
     patches = jax.vmap(patch)(xy).reshape(n, _DPATCH * _DPATCH)  # (N, P2)
 
-    # (30*512, P2) @ (P2, N) -> (30*512, N): one MXU matmul for everything.
+    # (30*512, P2) @ (P2, N) -> (30*512, N): one matmul for everything.
     sampled = jax.lax.dot_general(
         bin_weights.astype(jnp.bfloat16),
         patches.astype(jnp.bfloat16).T,
@@ -206,8 +200,8 @@ def _describe(
     ).reshape(_NBINS, 512, n)
 
     # Per-keypoint bin selection (angle quantized like ORB's 12-degree bins).
-    # Unrolled masked sum — a 30-wide einsum contraction is the degenerate-
-    # matmul shape that costs Mosaic minutes of compile time.
+    # Unrolled masked sum instead of a degenerate 30-wide einsum
+    # contraction.
     bin_idx = jnp.round(angle / (2.0 * jnp.pi / _NBINS)).astype(jnp.int32) % _NBINS
     vals = sum(
         sampled[b] * (bin_idx == b).astype(jnp.float32)[None, :]
@@ -337,20 +331,19 @@ def _detect_and_compute(
         # pixels than the level's feature budget; top-k requires k <= n, so
         # select what exists and pad the static capacity with masked slots.
         k_eff = min(k, h * w)
-        # approx_max_k: TPU-native approximate top-k — compiles 5x faster
-        # than lax.top_k on the Mosaic backend (measured: 38 s -> 7.6 s per
-        # level) and runs faster. Corner selection tolerates approximation:
-        # a missed corner is just a marginally weaker keypoint set, and
-        # capacity k usually exceeds the number of true corners anyway.
-        # Exact on CPU (sort fallback); topk_recall=1.0 forces exact top_k.
+        # approx_max_k: approximate top-k. Corner selection tolerates
+        # approximation: a missed corner is just a marginally weaker
+        # keypoint set, and capacity k usually exceeds the number of true
+        # corners anyway. On the GPU it lowers to an exact sort (ROADMAP
+        # 3.3); topk_recall=1.0 forces exact top_k.
         if grid_cells > 1 and h >= grid_cells and w >= grid_cells:
             # Bucketed selection: rank within G x G cells first (cap
             # ceil(k/G^2) per cell), then rank the cell survivors globally.
             # Every cell keeps its best local corners regardless of how they
             # compare to the globally strongest region, so weak-texture
             # areas hold stable top-k membership across keyframes. Static
-            # shapes throughout: (G^2, cell_px) batched top-k on the MXU-
-            # adjacent sort units, then one (G^2 * k_cell,) global top-k.
+            # shapes throughout: (G^2, cell_px) batched top-k, then one
+            # (G^2 * k_cell,) global top-k.
             g = grid_cells
             ph, pw = -h % g, -w % g
             padded = jnp.pad(

@@ -1,7 +1,7 @@
 """Pipeline parallelism: stage the video pipeline across devices.
 
 SURVEY.md §2.5 marks PP as the one strategy with no analog in the reference
-(which has no parallelism of any kind) and sketches the TPU-native shape:
+(which has no parallelism of any kind) and sketches its shape:
 "stage the pipeline (decode -> detect -> match -> solve) across devices".
 This module implements that as a two-stage software pipeline over a stream
 of videos:

@@ -2,7 +2,7 @@
 matching, via ``jax.sharding`` + ``shard_map`` over a device Mesh.
 
 The reference has no parallelism of any kind (SURVEY.md §2.5: single-process
-NumPy, no threads/MPI/NCCL). The TPU-native equivalents, per §5.7/§5.8:
+NumPy, no threads/MPI/NCCL). The JAX equivalents, per §5.7/§5.8:
 
   * **DP** (BASELINE config 5): a batch of videos sharded over the ``data``
     mesh axis — preprocessing, detection, matching and *per-core independent
@@ -219,15 +219,17 @@ def solve_ba_point_sharded(
         )
         return res._replace(points=res.points[None])
 
+    # Host copies: arrays the caller committed to one device would clash
+    # with the mesh's placement.
     res = run(
-        jnp.asarray(problem.cam_params),
+        np.asarray(problem.cam_params),
         jnp.asarray(pts_sharded),
         jnp.asarray(obs_l),
         jnp.asarray(fidx_l),
         jnp.asarray(pidx_l),
         jnp.asarray(mask_l),
         jnp.asarray(w_l),
-        jnp.asarray(problem.intrinsics),
+        np.asarray(problem.intrinsics),
         jnp.asarray(
             config.init_lambda if init_lambda is None else init_lambda,
             jnp.float32,

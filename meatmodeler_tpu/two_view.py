@@ -3,7 +3,7 @@
 The reference can only reconstruct with its calibration chessboard in view —
 every pose comes from ``solvePnP`` on board corners (``processor.py:175-179``)
 and there is no RANSAC of any kind. This module provides the classic
-board-free path: ORB features -> exact Hamming matching on the MXU ->
+board-free path: ORB features -> exact Hamming matching as a matmul ->
 batched-RANSAC essential matrix (thousands of 8-point hypotheses in one XLA
 program, ``geometry/ransac.py``) -> cheirality-voted pose recovery -> DLT
 triangulation of the inliers. Scale is unobservable from two views; the
@@ -106,8 +106,8 @@ def reconstruct_two_view(
 
     eye = jnp.concatenate([jnp.eye(3), jnp.zeros((3, 1))], axis=1)
     ext2 = projection.extrinsics_from_params(jnp.concatenate([rvec, tvec])[None])[0]
-    p1 = k @ eye
-    p2 = k @ ext2[:3]
+    p1 = projection.projection_from_extrinsic(k, eye)
+    p2 = projection.projection_from_extrinsic(k, ext2)
     pts3d = triangulation.triangulate_pairs(
         jnp.broadcast_to(p1, (pts1.shape[0], 3, 4)),
         jnp.broadcast_to(p2, (pts1.shape[0], 3, 4)),
@@ -116,7 +116,7 @@ def reconstruct_two_view(
     )
     # Cheirality: keep points in front of both cameras.
     z1 = pts3d[:, 2]
-    c2 = (ext2[:3, :3] @ pts3d.T).T + ext2[:3, 3]
+    c2 = projection.rotate_points(pts3d, rvec) + tvec
     in_front = (z1 > 0) & (c2[:, 2] > 0) & jnp.all(jnp.isfinite(pts3d), axis=1)
     inliers = res.inliers & in_front
 

@@ -2,7 +2,7 @@
 
 SURVEY.md §5.2/§5.3: the reference's only numerical defenses are scattered
 ``np.nan_to_num`` clamps (``processor.py:95``, ``bundleAdjuster.py:21,131``)
-— a NaN anywhere else propagates silently into the cloud. The TPU-native
+— a NaN anywhere else propagates silently into the cloud. The
 equivalents here:
 
   * ``check_finite(stage, **arrays)`` — host-side gate at pipeline stage

@@ -1,27 +1,27 @@
 """Trace-time matmul-precision pinning for numerics-critical code.
 
-On TPU, float32 ``jnp.dot``/``@``/``einsum`` default to reduced-precision
-MXU passes (bfloat16 mantissas). That is the right trade for the image
-path (CLAHE LUT application, ORB matching's Hamming matmul — large,
-precision-insensitive), but it is catastrophic for the GEOMETRY path:
-Gauss-Newton normal equations square the condition number, so the ~3
-decimal digits a bf16-pass matmul keeps turn LM solves into random walks
-(caught by tests/test_tpu_device.py::TestSolversOnDevice — on exact
-observations the pose solver stalled at 0.33 px residual with the damping
-railed at 1e12; with HIGHEST it reaches ~0 like the CPU backend).
+On the GPU, float32 ``jnp.dot``/``@``/``einsum`` default to TF32 tensor-core
+passes, which keep about three decimal digits (a 10-bit mantissa). That is
+the right trade for the image path (CLAHE LUT application, ORB matching's
+Hamming matmul — large, precision-insensitive), but it is catastrophic for
+the GEOMETRY path: Gauss-Newton normal equations square the condition
+number, so three-digit matmuls turn LM solves into random walks (on exact
+observations a reduced-precision pose solve stalls at a third of a pixel of
+residual with the damping railed at 1e12; with HIGHEST it reaches ~0 like
+the CPU backend), and TF32 rounding (relative 2**-11) of a 1500 px focal
+times a rotation moves a projection by up to about a pixel.
 
 ``matmul_highp`` wraps a function so that every jnp operation created
 while its Python body runs — i.e. while it is being TRACED, standalone or
-inlined inside any outer ``jit`` — defaults to
-``lax.Precision.HIGHEST`` (full f32 via multi-pass bf16 on the MXU).
-The geometry matrices are tiny (3x3 blocks, 8-point systems, reduced
-camera systems of tens of rows), so the extra MXU passes are free at the
-pipeline scale while restoring ~7 significant digits.
+inlined inside any outer ``jit`` — defaults to ``lax.Precision.HIGHEST``
+(full float32). The geometry matrices are tiny (3x3 blocks, 8-point
+systems, reduced camera systems of tens of rows), so full precision is free
+at the pipeline scale.
 
-CPU/GPU backends already run full f32; there the wrapper is a no-op in
-effect (the config still participates in jit cache keys, which is why the
-wrapper is applied at function level, not flipped globally: the image-path
-programs must keep compiling at DEFAULT).
+On the CPU backend float32 matmuls are full precision anyway; there the
+wrapper is a no-op in effect. The config still participates in jit cache
+keys, which is why the wrapper is applied at function level, not flipped
+globally: the image-path programs must keep compiling at DEFAULT.
 """
 
 from __future__ import annotations

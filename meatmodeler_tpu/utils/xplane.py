@@ -4,7 +4,7 @@ The reference's only observability is wall-clock prints (SURVEY.md §5.1);
 ``utils.profiling.profile_run`` already captures full XProf traces. This
 module turns a capture into NUMBERS the bench artifact can carry: seconds of
 actual device execution per XLA program (module), separating device compute
-from host orchestration — wall-clock alone cannot tell a link-stalled stage
+from host orchestration — wall-clock alone cannot tell a host-stalled stage
 from a compute-bound one.
 
 Implementation: traces are ``*.xplane.pb`` protobufs (one ``XSpace`` of
@@ -14,9 +14,11 @@ STANDALONE via importlib (importing all of tensorflow costs ~10 s and pulls
 CUDA shims; the generated module itself needs only ``google.protobuf``).
 No tensorflow = summarizer degrades to ``None``, never an ImportError.
 
-On TPU, device planes are named ``/device:TPU:0`` with an ``XLA Modules``
-line (one event per executable run, named after the jitted function) and
-``XLA Ops`` lines (per-HLO). On CPU (the test backend) XLA runs inside host
+Device planes are named ``/device:<PLATFORM>:<N>``. Where a device plane
+has an ``XLA Modules`` line (one event per executable run, named after the
+jitted function) it is summed; otherwise every line of the plane is summed,
+which double-counts a GPU's concurrent streams (ROADMAP lists the GPU
+reduction as open). On CPU (the test backend) XLA runs inside host
 threadpool lines instead; the summarizer falls back to aggregating those.
 """
 

@@ -8,7 +8,7 @@ both running as single XLA programs over the HBM-resident cloud:
   * ``convex_hull_volume`` — the hull is approximated from the *outside* as
     an intersection of half-spaces: sample D directions, compute the support
     value h(d) = max_p <p, d> (one (P, D) matmul), then count voxels v with
-    <v, d> <= h(d) for all d (one (V, D) matmul) — two MXU matmuls, exact in
+    <v, d> <= h(d) for all d (one (V, D) matmul) — two matmuls, exact in
     the D -> inf limit, monotonically decreasing in D.
   * ``carved_volume`` — classic voxel carving against per-view silhouettes:
     splat the item's projected points into each keyframe, dilate, and keep
@@ -61,7 +61,7 @@ def split_item_points(
 
       1. k-NN density: an item point sits in a cluster, so its k-th nearest
          neighbour is close; an isolated outlier's is not. (One (P, P)
-         distance matrix — an MXU matmul at these sizes.)
+         distance matrix — one matmul at these sizes.)
       2. median +- MAD on distance-to-centroid, which unlike quantiles does
          not move into a fat tail.
 
@@ -77,12 +77,11 @@ def split_item_points(
     big = jnp.float32(1e9)
     sq = jnp.sum(points * points, axis=1)
     # This expansion is catastrophically cancellation-prone: |p|^2 ~ 600 at
-    # the bench scene while k-NN distances^2 ~ 0.01-0.25, so the TPU's
-    # default reduced-precision matmul (bf16 mantissas, ~0.4% relative)
-    # buries the density gate in +-2.5 of noise — measured: the on-device
-    # split classified 1114/2114 item points vs 1961 on CPU, chopping the
-    # item's rim and the hull with it (-45% volume). matmul_highp on this
-    # function pins the product to full f32.
+    # the bench scene while k-NN distances^2 ~ 0.01-0.25, so a default
+    # reduced-precision matmul (TF32 on the GPU, ~0.05% relative; bf16
+    # passes, ~0.4%) buries the density gate in noise, chopping the item's
+    # rim and the hull with it. matmul_highp on this function pins the
+    # product to full f32.
     d2 = sq[:, None] + sq[None, :] - 2.0 * (points @ points.T)
     d2 = jnp.where(keep[None, :], d2, big)  # only candidate neighbours count
     d2 = d2 + jnp.where(jnp.eye(points.shape[0], dtype=bool), big, 0.0)
@@ -436,7 +435,7 @@ def hull_and_carved_volume(
     points per direction) steps past the residual tail of mis-triangulated
     survivors that inflate a raw max cubically. Accuracy is validated
     across a spread of synthetic scenes by ``tools/volume_validation.py``
-    (round-4 table, after the split_item_points precision fix: with the
+    (after the split_item_points precision fix: with the
     gated support + trim=5 the shipped config spans -15..+11% across the
     non-flagged scenes — e2e -6.9%, flat item +11%, 80-degree arc -15.4%,
     1080p bench -14.3% — and an elongated item from a narrow 50-degree
@@ -508,7 +507,7 @@ def hull_and_carved_volume(
     k_eff = min(trim + 1, points.shape[0])
     top_hi, _ = jax.lax.top_k(jnp.where(smask[:, None], pproj, -big).T, k_eff)
     top_lo, _ = jax.lax.top_k(jnp.where(smask[:, None], -pproj, -big).T, k_eff)
-    # Sparse-aware trim depth (VERDICT r4 #1): the order statistic digs a
+    # Sparse-aware trim depth: the order statistic digs a
     # FIXED number of points past each direction's extreme, so its bite is
     # proportionally deeper the sparser the support cloud — measured: the
     # trim=5 depth tuned on the ~1800-point bench cloud underread ~300-point

@@ -7,8 +7,7 @@ because the reference's own (4, 3) board is degenerate for the full mode
 (config.py ChessboardConfig notes) — but the full mode is supported
 (``calib_num_dist=5``, ``calib_single_focal=False``,
 ``calib_fix_principal_point=False``) and must match the cv2 oracle where the
-problem IS well-posed: a large board spanning the FOV under strong tilts
-(VERDICT r3 next #5).
+problem IS well-posed: a large board spanning the FOV under strong tilts.
 
 Scene: a 9x6 board, 14 views with +-35 deg tilts, corners synthesized by
 ``cv2.projectPoints`` from ground-truth K/dist5 with 0.05 px noise.

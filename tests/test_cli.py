@@ -66,7 +66,7 @@ def test_batch_mesh(clips):
 
 def test_warmup_compile_primes(tmp_path):
     """meatmodeler --warmup W H compiles the pipeline for that resolution
-    without any input video (VERDICT r1: cold-start mitigation). A partial
+    without any input video (cold-start mitigation). A partial
     run (too few keyframes on the tiny synthetic clip) still exits 0 — the
     big pass-1/pass-2 programs compiled, which is the command's contract."""
     rc = cli.main(

@@ -84,8 +84,8 @@ class TestEndToEnd:
         # Hull = symmetric-completion ∩ carve (volume.hull_and_carved_volume)
         # with silhouette-pruned support + trim=9 measures -3.9% at this
         # scene and +5.4% at the 1080p bench scene (the scene-spread table
-        # lives in tools/volume_validation.py) — envelope tightened round-3
-        # from 0.65..1.35 (VERDICT r2 item 5). Carve at
+        # lives in tools/volume_validation.py) — envelope tightened from
+        # 0.65..1.35. Carve at
         # THIS scene's geometry is wedge-limited: with EXACT analytic
         # silhouettes at these 8 views the ideal visual hull is +132%, so
         # its envelope stays wide — the carve is an upper bound by
@@ -226,7 +226,7 @@ class TestPass1Downscale:
 class TestPass2Downscale:
     def test_halfres_keyframes_keep_geometry(self, synthetic_run):
         """pass2_downscale=2: keyframes ship and process at half resolution
-        (4x fewer bytes over the throttled host->device link); all image-
+        (4x fewer bytes copied to the device); all image-
         plane quantities land in half-res pixel units while the 3D geometry
         — anchored to the board's metric side_length — is unchanged."""
         result, _, _, _ = synthetic_run
@@ -307,7 +307,7 @@ class TestIncrementalBA:
 
 
 class TestKeyframeRuleScaleInvariance:
-    """KeyframeConfig.threshold_abs (VERDICT r4 #10): one intensity budget,
+    """KeyframeConfig.threshold_abs: one intensity budget,
     any (resolution, downscale) — no per-config threshold compensation."""
 
     def test_pixel_doubled_selection_identical(self):

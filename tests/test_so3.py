@@ -87,7 +87,7 @@ class TestGradientsAtIdentity:
     infinite derivative turned the whole LM camera gradient NaN through
     where-after-sqrt guards (the fix guards INSIDE the sqrt); this pins all
     three maps. Regression for the bug caught on-device by
-    tests/test_tpu_device.py::test_global_ba_converges_on_device."""
+    tests/test_gpu_device.py::test_global_ba_converges_on_device."""
 
     def test_exp_jacobian_finite_at_zero(self):
         import jax
